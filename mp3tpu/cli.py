@@ -9,7 +9,7 @@ fixed 0x2c skip, but -s still overrides), AIFF (rate/channels from the
 header, like the reference), raw 16-bit PCM big-endian (default) or
 little-endian (-L), and '-' for stdin (raw PCM stream).
 
---exact uses the byte-exact oracle encoders instead of the TPU fast
+--exact uses the byte-exact oracle encoders instead of the device fast
 path (identical output to the reference binary where the reference is
 functional).
 """
@@ -30,7 +30,7 @@ _EMPH = {"n": 0, "5": 1, "c": 3}
 def build_parser():
     p = argparse.ArgumentParser(
         prog="mp3tpu",
-        description="TPU-native MPEG-1/2 audio encoder (Layers I/II/III)")
+        description="JAX MPEG-1/2 audio encoder (Layers I/II/III)")
     p.add_argument("-l", dest="layer", type=int, default=3,
                    choices=(1, 2, 3), help="layer (default 3)")
     p.add_argument("-m", dest="mode", default="s", choices=sorted(_MODES),

@@ -1,5 +1,5 @@
-"""TPU-native DSP front-end: polyphase analysis + MDCT as batched
-matmuls (MXU) over the granule axis.
+"""DSP front-end: polyphase analysis + MDCT as batched matmuls over
+the granule axis.
 
 Reformulation (cf. SURVEY.md section 2.1 and the oracle in
 mp3tpu/numpy_ref/dsp.py): all ring-buffer state becomes shifted slices
@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..tables import dsp as T
+from . import exact_matmuls
 
 _SIGN = np.ones((18, 32))
 _SIGN[1::2, 1::2] = -1.0
@@ -28,9 +29,8 @@ _SIGN[1::2, 1::2] = -1.0
 
 def sliding_shift_windows(flat, nshift, dtype):
     """(nshift, 512) windows W[t, j] = flat[32 (t+1) + j] built from 16
-    strided reshapes -- arbitrary-index gathers run on the TPU scalar
-    core and were ~60x slower than the rest of the filterbank; slices
-    are pure layout ops.
+    strided reshapes instead of an arbitrary-index gather; slices are
+    pure layout ops.
 
     The reference's window is z[t, i] = flat[512 + 32 t + 31 - i]
     (encode.c:287-315); with j = 511 - i that is exactly W[t, j], so
@@ -46,6 +46,7 @@ _ENWINDOW_REV = T.ENWINDOW[::-1].copy()
 _ANA_FILTER_REV = T.ANA_FILTER[:, ::-1].copy()
 
 
+@exact_matmuls
 def subband_granules(blocks, prev_tail, dtype=jnp.float32):
     """Polyphase analysis for a batch of granules.
 
@@ -61,10 +62,9 @@ def subband_granules(blocks, prev_tail, dtype=jnp.float32):
     # y[m] = sum_q v[64 q + m]; the fold's 64->32 matrix reads it in
     # reversed order, folded into _ANA_FILTER_REV
     y = v.reshape(-1, 8, 64).sum(axis=1)
-    # TPU DEFAULT matmul precision is bf16: not enough for a filterbank
-    # feeding a 16-bit-depth quantizer; force true f32 accumulation
-    with jax.default_matmul_precision("float32"):
-        s = y @ jnp.asarray(_ANA_FILTER_REV.T, dtype)
+    # full f32 (exact_matmuls): a filterbank feeding a 16-bit-depth
+    # quantizer needs more than a reduced-precision matmul's mantissa
+    s = y @ jnp.asarray(_ANA_FILTER_REV.T, dtype)
     return s.reshape(G, 18, 32)
 
 
@@ -101,6 +101,7 @@ _BASIS_LONG = {b: (T.MDCT_WIN[b][:, None] * T.COS_L.T) for b in (0, 1, 3)}
 _BASIS_SHORT = _short_basis()
 
 
+@exact_matmuls
 def mdct_granules(sb, sb_prev_last, block_type, dtype=jnp.float32):
     """Batched MDCT over granules.
 
@@ -117,18 +118,16 @@ def mdct_granules(sb, sb_prev_last, block_type, dtype=jnp.float32):
     mdct_in = jnp.concatenate([prevf, sbf], axis=1)      # (G, 36, 32)
     x = mdct_in.transpose(0, 2, 1)                        # (G, 32, 36)
 
-    # f32 accumulation (TPU DEFAULT is bf16 -- see subband_granules)
-    with jax.default_matmul_precision("float32"):
-        outs = []
-        for b in (0, 1, 3):
-            outs.append(x @ jnp.asarray(_BASIS_LONG[b], dtype))
-        out_short = x @ jnp.asarray(_BASIS_SHORT, dtype)
+    outs = []
+    for b in (0, 1, 3):
+        outs.append(x @ jnp.asarray(_BASIS_LONG[b], dtype))
+    out_short = x @ jnp.asarray(_BASIS_SHORT, dtype)
 
-        bt = block_type[:, None, None]
-        out = jnp.where(bt == 0, outs[0],
-              jnp.where(bt == 1, outs[1],
-              jnp.where(bt == 3, outs[2], out_short)))    # (G, 32, 18)
-        xr = out.reshape(G, 576)
-        # alias reduction only for non-short
-        xr_alias = xr @ jnp.asarray(_ALIAS.T, dtype)
+    bt = block_type[:, None, None]
+    out = jnp.where(bt == 0, outs[0],
+          jnp.where(bt == 1, outs[1],
+          jnp.where(bt == 3, outs[2], out_short)))    # (G, 32, 18)
+    xr = out.reshape(G, 576)
+    # alias reduction only for non-short
+    xr_alias = xr @ jnp.asarray(_ALIAS.T, dtype)
     return jnp.where((block_type == 2)[:, None], xr, xr_alias)

@@ -1,4 +1,4 @@
-"""TPU-native Layer I/II compute path, batched over frames.
+"""Layer I/II device compute path, batched over frames.
 
 Everything the reference does per-frame sequentially (encode.c L1/L2
 paths + psy.c) becomes one jitted graph over the whole clip:
@@ -7,7 +7,7 @@ paths + psy.c) becomes one jitted graph over the whole clip:
     (jaxdsp.subband_granules reformulation of encode.c:287-409);
   psy model 2 (psy.c): Hann window + rfft over all analysis windows at
     once, unpredictability from shifted spectra, partition sums and the
-    63x63 spreading convolution as matmuls (MXU), 32-subband SNR
+    63x63 spreading convolution as matmuls, 32-subband SNR
     translation with strided min/sum segments;
   scale factors (encode.c:536-557): a digitize over the descending
     multiple[] table;
@@ -35,10 +35,12 @@ from ..numpy_ref import psy12 as psy12_ref
 from ..tables import dsp as T
 from ..tables import layer12 as L
 from ..tables import mpeg
+from . import exact_matmuls
 
 F32 = jnp.float32
 
 
+@exact_matmuls
 def subband_frames(blocks, ngroups, dtype=F32):
     """Polyphase analysis over whole frames.
 
@@ -55,9 +57,7 @@ def subband_frames(blocks, ngroups, dtype=F32):
     W = jaxdsp.sliding_shift_windows(flat, nshift, dtype)
     v = W * jnp.asarray(jaxdsp._ENWINDOW_REV, dtype)[None, :]
     y = v.reshape(-1, 8, 64).sum(axis=1)
-    # f32 accumulation (TPU DEFAULT matmul precision is bf16)
-    with jax.default_matmul_precision("float32"):
-        s = y @ jnp.asarray(jaxdsp._ANA_FILTER_REV.T, dtype)
+    s = y @ jnp.asarray(jaxdsp._ANA_FILTER_REV.T, dtype)
     return s.reshape(nf, ngroups, 12, 32)
 
 
@@ -80,6 +80,7 @@ def _psy_constants(sfreq_hz):
         part=part.astype(np.int32))
 
 
+@exact_matmuls
 def psy_snr32(windows, layer, consts):
     """Model-2 SNR for a batch of 1024-sample analysis windows.
 
@@ -90,11 +91,6 @@ def psy_snr32(windows, layer, consts):
     i = jnp.arange(1024, dtype=jnp.float64)
     hann = (0.5 * (1 - jnp.cos(2.0 * mpeg.REF_PI * (i - 0.5) / 1024))
             ).astype(F32)
-    with jax.default_matmul_precision("float32"):
-        return _psy_snr32_body(windows, hann, layer, consts)
-
-
-def _psy_snr32_body(windows, hann, layer, consts):
     spec = jnp.fft.rfft(windows * hann[None, :])
     re, im = jnp.real(spec).astype(F32), jnp.imag(spec).astype(F32)
     energy = re * re + im * im

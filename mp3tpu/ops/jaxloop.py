@@ -1,16 +1,16 @@
-"""TPU-native Layer III rate/distortion loop: the reference's nested
+"""Layer III rate/distortion loop: the reference's nested
 variable-trip searches (loop.c:415-606) reformulated as fixed-shape,
 vmappable tensor programs.
 
 Key redesigns (cf. SURVEY.md section 7):
-  - quantize is a closed-form VPU op: ix = round(|xr*2^(-s/4)|^0.75
+  - quantize is a closed-form elementwise op: ix = round(|xr*2^(-s/4)|^0.75
     - 0.0946).  The reference's pow_nint table saturates at 2047 and
     silently clips loud peaks (pow_nint.h:15-49); here the range check
     uses the true value against the Huffman limit 8206, as the IS
     intends -- a large quality improvement over the reference.
   - run-length partition (calc_runlen) via suffix cumulative products;
   - bit counting for ALL 32 pair tables at once: pair values ->
-    one-hot histogram per region (matmul, MXU) x fused per-pair cost
+    one-hot histogram per region (int8 matmul) x fused per-pair cost
     LUT -> (regions, 32) bit totals; table choice is then the
     reference's candidate logic as a branchless select;
   - the stepsize search is a fixed-depth bisection on the predicate
@@ -30,6 +30,7 @@ from ..tables import mpeg
 from ..tables.dsp import POW_4_3
 from ..tables.huffman import (ESC_TABLE_A, ESC_TABLE_B, FIRST_TABLE_FOR_MAX,
                               HUFF)
+from . import exact_matmuls
 
 IXMAX = 8191 + 14  # table range limit (loop.c:588)
 QMIN, QMAX = -210.0, 45.0  # global_gain in [0, 255]
@@ -111,7 +112,7 @@ def calc_runlen(ix, is_short):
     with a component > 1, the trailing <=1 run spans p_nz - p_big
     pairs, count1 = that // 2 quads (identical to the reference's
     sample-granular R // 4 for both parities), and big_values covers
-    everything below.  Two cheap VPU reductions -- no suffix scans."""
+    everything below.  Two cheap max reductions -- no suffix scans."""
     G = ix.shape[0]
     pairs = ix.reshape(G, 288, 2)
     idx = jnp.arange(288)[None, :]
@@ -186,7 +187,7 @@ def _region_table_bits(ixp, a1, a2, bvr, is_short, r0_pairs_short):
     The 256-class pair histogram is FACTORIZED into its x/y 16-class
     components: H[g, r, a, b] = sum_p regmask[g,p,r] ohx[g,p,a]
     ohy[g,p,b], computed as (regmask x ohx) -> (G, 288, 48) int8, then
-    one int8 MXU contraction over pairs.  An unfactorized (G, 288, 256)
+    one int8 contraction over pairs.  An unfactorized (G, 288, 256)
     one-hot costs ~2 GB of HBM traffic per evaluation at G=8k -- the
     dominant rate-loop cost; the factored form moves ~8x less and is
     exactly equal (verified): every count is an exact int32 sum.
@@ -212,10 +213,10 @@ def _region_table_bits(ixp, a1, a2, bvr, is_short, r0_pairs_short):
     hist = jnp.einsum("gpq,gpb->gqb", W, ohy,
                       preferred_element_type=jnp.int32) \
         .reshape(G, 3, 256)                              # exact counts
-    # HIGHEST precision: the TPU's DEFAULT f32 matmul multiplies in
-    # bf16, which rounds products like 13*27 and yields off-by-one BIT
-    # COUNTS -- an undercounted part2_3_length overruns the granule in
-    # every decoder.  Exact f32 keeps all products (<2^15) integral.
+    # HIGHEST precision: a reduced-precision f32 matmul (TF32 on a GPU)
+    # rounds products like 13*27 and yields off-by-one BIT COUNTS -- an
+    # undercounted part2_3_length overruns the granule in every
+    # decoder.  Exact f32 keeps all products (<2^15) integral.
     bits_tab = jnp.einsum("grc,tc->grt", hist.astype(jnp.float32),
                           jnp.asarray(_PAIR_BITS),
                           precision=jax.lax.Precision.HIGHEST,
@@ -288,21 +289,12 @@ def _count1_bits(ix, big_values, count1):
     hist = onehot.sum(axis=1, dtype=jnp.int32).astype(jnp.float32)  # (G, 16)
     signbits = jnp.sum(jnp.minimum(ixs.reshape(G, 144, 4), 1) * inr[:, :, None], axis=(1, 2))
     # HIGHEST precision: exact integer-valued f32 products (see
-    # _region_table_bits -- default bf16 matmul corrupts bit counts)
+    # _region_table_bits -- a reduced-precision matmul corrupts counts)
     with jax.default_matmul_precision("highest"):
         b0 = hist @ jnp.asarray(_C1_HLEN[0]) + signbits
         b1 = hist @ jnp.asarray(_C1_HLEN[1]) + signbits
     sel = jnp.where(b0 < b1, 0, 1).astype(jnp.int32)
     return jnp.where(sel == 0, b0, b1), sel
-
-
-def _use_pallas():
-    """Opt-in only (MP3TPU_PALLAS=1): the factorized XLA histogram in
-    _region_table_bits measures FASTER than the Pallas kernel (the
-    kernel's VPU one-hot generation dominates its runtime), so the
-    kernel is kept as a verified alternative, not the default."""
-    from . import pallas_bits
-    return pallas_bits.backend_ok()
 
 
 def count_all(ix, is_short, is_short_block, ST, pre_permuted=False):
@@ -323,21 +315,9 @@ def count_all(ix, is_short, is_short_block, ST, pre_permuted=False):
                         ix[:, jnp.asarray(ST["perm_short"])], ix)
     count1, big_values = calc_runlen(ixp, is_short)
     r0, r1, a1, a2 = subdivide(big_values, is_short, is_short_block, ST)
-    bvr = 2 * big_values
-    G = ixp.shape[0]
-    if _use_pallas() and G % 8 == 0:
-        from . import pallas_bits
-        tg = 16 if G % 16 == 0 else 8
-        bits_tab, mx, b0raw, signs = pallas_bits.hist_c1(
-            ixp, a1, a2, big_values, count1, is_short, ST, tg=tg)
-        b0 = (b0raw + signs).astype(jnp.float32)
-        b1 = (4 * count1 + signs).astype(jnp.float32)
-        c1_sel = jnp.where(b0 < b1, 0, 1).astype(jnp.int32)
-        c1_bits = jnp.where(c1_sel == 0, b0, b1)
-    else:
-        bits_tab, mx = _region_table_bits(ixp, a1, a2, bvr, is_short,
-                                          ST["r0_pairs_short"])
-        c1_bits, c1_sel = _count1_bits(ixp, big_values, count1)
+    bits_tab, mx = _region_table_bits(ixp, a1, a2, 2 * big_values,
+                                      is_short, ST["r0_pairs_short"])
+    c1_bits, c1_sel = _count1_bits(ixp, big_values, count1)
     tables, region_bits = _choose_tables(bits_tab, mx)
     # short blocks only use regions 0/1
     region_ok = jnp.where(is_short[:, None],
@@ -358,6 +338,7 @@ def count_all(ix, is_short, is_short_block, ST, pre_permuted=False):
 _POW43 = POW_4_3.astype(np.float32)
 
 
+@exact_matmuls
 def calc_noise(xr_abs, ix, qss, is_short, ST):
     """Per-sfb quantization noise (loop.c:1007-1070).
     Returns xfsf_l (G,21), xfsf_s (G,12,3)."""
@@ -365,27 +346,24 @@ def calc_noise(xr_abs, ix, qss, is_short, ST):
     step = jnp.exp2(0.25 * qss)[:, None]
     dq = jnp.power(ix.astype(jnp.float32), 4.0 / 3.0) * step
     err2 = (xr_abs - dq) ** 2
-    # f32 accumulation (TPU DEFAULT matmul precision is bf16)
-    with jax.default_matmul_precision("float32"):
-        xfsf_l = (err2 @ jnp.asarray(ST["oh_l"], err2.dtype)) / jnp.asarray(ST["bw_l"], err2.dtype)
-        e3 = err2.reshape(G, 192, 3)
-        xfsf_s = jnp.einsum("gls,lb->gbs", e3, jnp.asarray(ST["oh_s"], err2.dtype)) \
-            / jnp.asarray(ST["bw_s"], err2.dtype)[None, :, None]
+    xfsf_l = (err2 @ jnp.asarray(ST["oh_l"], err2.dtype)) / jnp.asarray(ST["bw_l"], err2.dtype)
+    e3 = err2.reshape(G, 192, 3)
+    xfsf_s = jnp.einsum("gls,lb->gbs", e3, jnp.asarray(ST["oh_s"], err2.dtype)) \
+        / jnp.asarray(ST["bw_s"], err2.dtype)[None, :, None]
     return xfsf_l, xfsf_s
 
 
+@exact_matmuls
 def calc_xmin(xr_abs, ratio_l, ratio_s, ST):
     """Allowed distortion (loop.c:1085-1119)."""
     G = xr_abs.shape[0]
     en2 = xr_abs * xr_abs
-    # f32 accumulation (TPU DEFAULT matmul precision is bf16)
-    with jax.default_matmul_precision("float32"):
-        en_l = (en2 @ jnp.asarray(ST["oh_l"], en2.dtype)) / jnp.asarray(ST["bw_l"], en2.dtype)
-        xmin_l = ratio_l * en_l
-        e3 = en2.reshape(G, 192, 3)
-        en_s = jnp.einsum("gls,lb->gbs", e3, jnp.asarray(ST["oh_s"], en2.dtype)) \
-            / jnp.asarray(ST["bw_s"], en2.dtype)[None, :, None]
-        xmin_s = ratio_s * en_s
+    en_l = (en2 @ jnp.asarray(ST["oh_l"], en2.dtype)) / jnp.asarray(ST["bw_l"], en2.dtype)
+    xmin_l = ratio_l * en_l
+    e3 = en2.reshape(G, 192, 3)
+    en_s = jnp.einsum("gls,lb->gbs", e3, jnp.asarray(ST["oh_s"], en2.dtype)) \
+        / jnp.asarray(ST["bw_s"], en2.dtype)[None, :, None]
+    xmin_s = ratio_s * en_s
     return xmin_l, xmin_s
 
 
@@ -506,23 +484,20 @@ def _bits_only(xr75p, qss, is_short, is_short_block, ST):
     loops below carry ONLY (G,) vectors: when ix and the count dict are
     threaded through lax.while_loop carries, every iteration rewrites
     ~80 MB of HBM for the jnp.where merges; with scalar-per-lane
-    carries the whole quantize+histogram pipeline (Pallas kernel on
-    TPU, ops/pallas_bits.py) runs without materializing anything."""
+    carries the whole quantize+histogram pipeline runs without
+    materializing anything."""
     bits, _ = _bits_at(xr75p, qss, is_short, is_short_block, ST)
     return bits
 
 
-# NEGATIVE RESULT (round 5, measured on TPU v5e): a candidate-ladder
-# search -- one _bits_only-style evaluation scoring K=17 stepsizes per
-# lane by folding candidates into the lane axis, replacing the 8-step
-# bisection with 2 ladder passes and each warm walk with 1 -- ran
-# 2.5x SLOWER end to end (fused demand 0.31 s -> 0.77 s at 8192
-# granules).  The serial evaluations are THROUGHPUT-bound, not
-# latency-bound: one extra candidate costs ~2.7 ms/8k granules
-# (measured: 1 eval 27 ms incl. ~25 ms sync, 10 fused serial evals
-# 52 ms), so K-parallel scoring costs ~K times a serial step and the
-# ladder's 2x17+6x16 lane-evals lose to the serial scheme's ~28.
-# int8 / bf16 / class-one-hot histogram formulations measured equal.
+# NEGATIVE RESULT (earlier accelerator): a candidate-ladder search --
+# one _bits_only-style evaluation scoring K=17 stepsizes per lane by
+# folding candidates into the lane axis, replacing the 8-step bisection
+# with 2 ladder passes and each warm walk with 1 -- lost end to end.
+# When the serial evaluations are THROUGHPUT-bound rather than
+# latency-bound, K-parallel scoring costs ~K serial steps, and the
+# ladder's 2x17+6x16 lane-evaluations exceed the serial scheme's ~28.
+# Whether the GPU is throughput- or latency-bound here is not measured.
 
 
 def search_walk(xr75p, budget, start_qss, is_short, is_short_block, ST,
@@ -631,7 +606,7 @@ def _default_max_iter():
     quality fixtures: decoded SNR is flat or IMPROVES as the cap drops
     from 10 to 3 (late amplification rounds trade global quantizer
     precision for per-band resolution the SNR never recovers), while
-    each round costs ~14 ms per 8k-granule pass.  Default 6 keeps the
+    each round costs a full-batch search.  Default 6 keeps the
     psychoacoustic amplification mechanism meaningful (most granules
     converge in 3-6 rounds, loop.c:415-558) at ~60% of the cap-10
     cost; it is NOT pushed lower because the SNR metric undervalues
@@ -640,6 +615,7 @@ def _default_max_iter():
     return int(os.environ.get("MP3TPU_MAX_ITER", "6"))
 
 
+@exact_matmuls
 def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
                ST, max_iter=None, sf_fix_mask=None, sf_fix_val=None,
                sf_skip_mask=None, qss_lo=None):
@@ -878,8 +854,7 @@ def outer_loop(xr, budget, ratio_l, ratio_s, is_short_block, block_type,
     # iteration-0 stepsize: a sound warm lower bound for a LATER encode
     # of the same spectrum at an equal-or-smaller budget (the
     # post-amplification best["qss"] is NOT -- amplification can push
-    # it above what the final encode's fixed scalefactors need, ADVICE
-    # r4 #3)
+    # it above what the final encode's fixed scalefactors need)
     out["qss0"] = qss_init
     out["part2_3_length"] = jnp.where(silent, 0, p23)
     out["global_gain"] = jnp.where(

@@ -1,11 +1,10 @@
-"""TPU-native psychoacoustic model 2 (Layer III flavour).
+"""Psychoacoustic model 2 (Layer III flavour).
 
 Design (vs l3psy.c): everything becomes batched matmuls and elementwise
-VPU work over the granule axis:
+work over the granule axis:
 
   - the 1024/256-point real FFTs are DFT matmuls (two (N, N/2+1)
-    cos/sin matrices) -- MXU-friendly and faster than generic FFTs at
-    these sizes;
+    cos/sin matrices);
   - the unpredictability measure is computed from re/im directly
     (no atan2/cos/sin): the extrapolated spectrum is
     r' * unit(2*phi1 - phi2) with unit() from complex products;
@@ -30,6 +29,7 @@ import numpy as np
 
 from ..tables import mpeg
 from ..tables.psy import CBANDS, CBANDS_S, SBMAX_L, SBMAX_S, psy_params_for_sfreq
+from . import exact_matmuls
 
 LN = mpeg.LN_TO_LOG10
 SWITCH_PE = 1800.0
@@ -190,14 +190,13 @@ def psycho_granules(blocks, halo2, sfreq_hz, dtype=jnp.float32,
     P = M["P"]
     blocks = blocks.astype(dtype)
     halo2 = halo2.astype(dtype)
-
-    # TPU DEFAULT matmul precision is bf16; the DFT/partition/spreading
-    # matmuls feed threshold decisions and need true f32 accumulation
-    with jax.default_matmul_precision("float32"):
-        return _psycho_granules_body(blocks, halo2, M, P, dtype,
-                                     warmup, fsm_init)
+    return _psycho_granules_body(blocks, halo2, M, P, dtype, warmup,
+                                 fsm_init)
 
 
+# the DFT/partition/spreading matmuls feed threshold and block-type
+# decisions, so they run at full f32
+@exact_matmuls
 def _psycho_granules_body(blocks, halo2, M, P, dtype, warmup=0,
                           fsm_init=None):
     frames_l = _frames_long(blocks, halo2) * jnp.asarray(_hann(1024), dtype)

@@ -3,7 +3,7 @@
 The reference is strictly sequential (SURVEY.md section 2.3); its
 carried state S1-S3 (filterbank ring buffer, MDCT overlap, psy FFT
 history) are fixed-size halos at shard boundaries, exchanged with the
-left neighbor via ppermute over ICI.  The bit reservoir (S4/S5) is a
+left neighbor via ppermute.  The bit reservoir (S4/S5) is a
 scalar prefix dependency handled by the host scan in mp3tpu.encoder;
 its per-shard inputs (pe, demand) come back with the encode outputs.
 
@@ -78,7 +78,7 @@ def encode_sharded(mesh, blocks, budget, version, sampling_frequency,
                               out["ix"])
         out["pe"] = psy["pe"]
         out["xr"] = xr
-        # a cheap cross-shard reduction exercises the ICI path and
+        # a cheap cross-shard reduction exercises the collective path and
         # gives the host scan a global bit-demand estimate up front
         out["total_demand"] = jax.lax.psum(
             jnp.sum(out["part2_3_length"]), axis)[None]

@@ -399,7 +399,7 @@ int mp3bits_frame(void* h, int bits_per_frame, int padding, int main_data_begin,
                    side_rows, sfl_rows, sfs_rows, ix_rows, resv_drain);
 }
 
-// Whole-clip assembly from DEVICE-PACKED payloads: the TPU emits each
+// Whole-clip assembly from DEVICE-PACKED payloads: the device emits each
 // granule's main_data (scalefactors + Huffman codewords) as an
 // MSB-first u32 word row (ops/jaxbits.py); this weave only writes
 // headers + side info and splices the payload bits, plus the exact

@@ -7,7 +7,7 @@ bound, pow_nint.h:15-49), which defeats the ix_max<=8205 range check
 (loop.c:588) and clips every loud spectral peak; the outer loop's
 scalefactor amplification then amplifies the saturation.  Decoded SNR
 of the reference on the loud golden fixtures is therefore only ~0-3 dB.
-The TPU production encoder corrects the quantizer and must beat these
+The production encoder corrects the quantizer and must beat these
 numbers (BASELINE.md: decoded SNR >= reference at every bitrate).
 """
 import numpy as np

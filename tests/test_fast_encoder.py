@@ -1,4 +1,4 @@
-"""Production (TPU) encoder path: validity + decoded-SNR quality gate.
+"""Production (device) encoder path: validity + decoded-SNR quality gate.
 
 BASELINE.md requires decoded SNR >= the reference encoder at every
 bitrate; reference numbers live in tests/golden/ref_snr.json.

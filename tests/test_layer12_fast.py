@@ -1,4 +1,4 @@
-"""Layer I/II TPU fast-path tests: decoded quality must match the
+"""Layer I/II device fast-path tests: decoded quality must match the
 byte-exact oracle / reference stream, and structure must be valid.
 
 The fast path uses f32 DSP + jnp.fft (vs the oracle's exact float32

@@ -2,7 +2,7 @@
 """Regenerate tests/golden/ref_snr.json: decoded SNR of the REFERENCE
 encoder's golden MP3s vs their source WAVs, per channel.
 
-These are the quality baselines the TPU fast path must meet or beat
+These are the quality baselines the fast path must meet or beat
 (BASELINE.md north star: decoded SNR >= reference at every bitrate).
 Includes the moderate-level q_* fixtures where the reference's
 quantizer does not saturate (real 25-60 dB baselines).

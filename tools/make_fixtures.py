@@ -90,7 +90,7 @@ FIXTURES = [
 # Quality fixtures at moderate level (-16..-20 dBFS): the reference's
 # pow_nint quantizer does NOT saturate here, so its decoded SNR is the
 # real 25-60 dB -- these make the >=-reference quality gate meaningful
-# (VERDICT round 1, "What's weak" item 2).
+# (with saturated fixtures alone the gate measured clipping, not quality).
 QUALITY_FIXTURES = [
     ("q_sine_st_128", "sine", 1.2, 44100, 2, 128, "s", 0.15),
     ("q_sweep_st_128", "sweep", 1.5, 44100, 2, 128, "s", 0.15),
